@@ -1,14 +1,14 @@
 #!/usr/bin/env python
-"""Roofline accounting for the flagship batch step (VERDICT r4 item 2).
+"""Roofline accounting for the flagship batch step.
 
-Replaces the asserted "bandwidth-bound" claim with measured fractions:
+Replaces an asserted "bandwidth-bound" claim with measured fractions:
 for the B x T flagship shapes this reports, per stage,
 
   - XLA's own cost model (compiled.cost_analysis()): bytes accessed and
     FLOPs of the whole program;
   - measured wall time on the current backend (block_until_ready);
-  - achieved HBM GB/s vs the chip's peak, and achieved TFLOP/s vs the
-    MXU peak (MFU).
+  - achieved HBM GB/s vs the device's peak, and achieved TFLOP/s vs
+    its matmul peak for the AM's dtype (MFU).
 
 Stages measured:
   decode      the production viterbi_decode (forward + bp + on-device
@@ -18,12 +18,13 @@ Stages measured:
               backpointer machinery
   am_forward  the TDNN-F chunk AM (the MFU side of the step)
 
-Peaks default to TPU v5e (819 GB/s HBM, 197 bf16 TFLOP/s; f32 runs
-through the same MXU at half rate) and are overridable via
-ROOFLINE_PEAK_GBS / ROOFLINE_PEAK_TFLOPS.
+Peaks come from the PEAKS table, keyed by JAX's ``device_kind``; a
+device missing from it is an error. Shares are of the published peak;
+report them beside the card's power limit (nvidia-smi), since a card set
+below its full limit cannot hold the peak clock.
 
 Usage: python examples/decode_roofline.py [B] [T_seconds]
-(defaults B=512, 3.0 s — the BENCH flagship point).
+(defaults B=512, 3.0 s).
 """
 
 import os
@@ -37,8 +38,26 @@ import numpy as np
 B = int(sys.argv[1]) if len(sys.argv) > 1 else 512
 SECONDS = float(sys.argv[2]) if len(sys.argv) > 2 else 3.0
 ITERS = int(os.environ.get("ROOFLINE_ITERS", "5"))
-PEAK_GBS = float(os.environ.get("ROOFLINE_PEAK_GBS", "819"))
-PEAK_TFLOPS = float(os.environ.get("ROOFLINE_PEAK_TFLOPS", "197"))
+
+# Published dense peaks per device (NVIDIA H100 SXM data sheet, at its
+# full 700 W power limit): HBM bytes/s and matmul FLOP/s by AM dtype
+# (f32 at Precision.HIGHEST runs outside the tensor cores).
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {
+        "hbm_gbs": 3350.0,
+        "tflops": {"bf16": 989.0, "f32": 67.0},
+    },
+}
+
+
+def device_peaks(device_kind: str, dtype: str):
+    """(HBM GB/s, TFLOP/s) for ``device_kind`` at the AM's ``dtype``."""
+    if device_kind not in PEAKS:
+        raise SystemExit(
+            f"no published peaks for device {device_kind!r}; add it to PEAKS"
+        )
+    p = PEAKS[device_kind]
+    return p["hbm_gbs"], p["tflops"][dtype]
 
 
 def main():
@@ -49,7 +68,7 @@ def main():
 
     enable_compilation_cache()
 
-    import bench  # repo-root flagship builders
+    import bench  # repo-root flagship AM sizes
 
     from rhasspy_speech_tpu.models import compile_nnet3
     from rhasspy_speech_tpu.ops.decoder import (
@@ -63,10 +82,12 @@ def main():
         mfcc_batch,
         num_frames,
     )
+    from rhasspy_speech_tpu.testing.flagship import build_flagship_graph
     from rhasspy_speech_tpu.testing.tdnnf import build_tdnnf_spec
 
-    graph, _g_fuzzy, _lang, tree_pdfs = bench.build_graph_and_fuzzy()
-    graph.num_pdfs = max(bench.NUM_PDFS, tree_pdfs)
+    graph, _g_fuzzy, _lang = build_flagship_graph(
+        order=3, with_fuzzy=False, num_pdfs=bench.NUM_PDFS
+    )
     dev_graph = make_decode_graph(graph)
 
     cfg = FrontendConfig(num_mel_bins=40, num_ceps=40)
@@ -84,6 +105,10 @@ def main():
     )
     model = compile_nnet3(spec, num_out_frames=n_out, subsampling=3)
     bf16 = bench.DTYPE in ("bfloat16", "bf16")
+    dev = jax.devices()[0]
+    PEAK_GBS, PEAK_TFLOPS = device_peaks(
+        dev.device_kind, "bf16" if bf16 else "f32"
+    )
     if bf16:
         model = model.cast(jnp.bfloat16)
     lo, hi = model.ranges["input"]
@@ -126,6 +151,7 @@ def main():
     }
 
     print(
+        f"device {dev.platform} {dev.device_kind} | "
         f"B={B} T={T} n_out={n_out} graph S={graph.num_states} "
         f"A={graph.num_arcs} P={graph.num_pdfs} layout="
         f"{type(dev_graph).__name__} dtype={'bf16' if bf16 else 'f32'}"

@@ -21,13 +21,6 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-import jax
-
-if os.environ.get("JAX_PLATFORMS", "") == "cpu":
-    jax.config.update("jax_platforms", "cpu")
-if any(d.platform == "cpu" for d in jax.devices()):
-    jax.config.update("jax_default_device", jax.devices("cpu")[0])
-
 import numpy as np
 
 from rhasspy_speech_tpu.const import LangSuffix

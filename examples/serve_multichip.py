@@ -12,7 +12,7 @@ On this machine the mesh is virtual: run with
   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
       python examples/serve_multichip.py [num_utts]
 
-On a real TPU pod slice the same code shards over the actual chips.
+On a multi-GPU host the same code shards over the cards.
 """
 
 import os
@@ -23,13 +23,6 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-import jax
-
-if os.environ.get("JAX_PLATFORMS", "") == "cpu":
-    # re-pin the selection too: the TPU plugin rewrites it at startup
-    jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_default_device", jax.devices("cpu")[0])
 
 from rhasspy_speech_tpu.const import LangSuffix
 from rhasspy_speech_tpu.parallel import ShardedWavTranscriber, make_stream_mesh
@@ -65,12 +58,7 @@ def main() -> int:
     )
     lang_dir = os.path.join(tmp, "train", lang_dir_name(LangSuffix.GRAMMAR))
 
-    if os.environ.get("JAX_PLATFORMS", "") == "cpu":
-        # honor the CPU request even when a TPU plugin registers itself:
-        # build the mesh from the (virtualized) CPU devices explicitly
-        mesh = make_stream_mesh(devices=jax.devices("cpu"))
-    else:
-        mesh = make_stream_mesh()
+    mesh = make_stream_mesh()
     n_dev = int(np.prod(mesh.devices.shape))
     print(f"mesh: {n_dev} x {mesh.devices.ravel()[0].platform} devices")
 

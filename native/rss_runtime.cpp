@@ -3,7 +3,7 @@
 // The reference delegates all native work to Kaldi/OpenFST subprocesses and
 // an external sox for resampling (reference: tests/resample.py, and the
 // 16 kHz mono requirement in rhasspy_speech/transcribe_wav.py). This library
-// is the TPU framework's equivalent of that ingestion layer, in-process:
+// is this framework's equivalent of that ingestion layer, in-process:
 //
 //  - WAV (RIFF s16le) parsing with channel mixdown,
 //  - windowed-sinc rational resampling to 16 kHz,

@@ -1,13 +1,13 @@
-"""rhasspy_speech_tpu: TPU-native template-grammar speech-to-text.
+"""rhasspy_speech_tpu: accelerator-native template-grammar speech-to-text.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of
-rhasspy-speech (template grammars -> decode graphs; MFCC + nnet3 TDNN
-acoustic model + WFST decoding -> transcripts), redesigned for TPU:
-batched streams, fused feature kernels, dense Viterbi decoding.
+A from-scratch JAX/XLA framework with the capabilities of rhasspy-speech
+(template grammars -> decode graphs; MFCC + nnet3 TDNN acoustic model +
+WFST decoding -> transcripts), redesigned for a GPU: batched streams, one
+jitted program per serving step, dense Viterbi decoding.
 
 Public API mirrors the reference package
 (/root/reference/rhasspy_speech/__init__.py:1-6: train_model, LangSuffix,
-KaldiNnet3WavTranscriber; tools paths are replaced by in-process TPU
+KaldiNnet3WavTranscriber; tools paths are replaced by in-process
 runtime configuration).
 """
 

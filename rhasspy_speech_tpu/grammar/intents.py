@@ -30,8 +30,6 @@ import collections.abc
 from dataclasses import dataclass, field
 from typing import Any, Dict, IO, List, Optional, Union
 
-import yaml
-
 from .expression import (
     RangeSlotList,
     Sentence,
@@ -71,6 +69,9 @@ class Intents:
 
     @staticmethod
     def from_yaml(yaml_file: Union[IO[str], str]) -> "Intents":
+        """Parse YAML text or a stream (needs PyYAML, the ``yaml`` extra)."""
+        import yaml
+
         return Intents.from_dict(yaml.safe_load(yaml_file))
 
     @staticmethod

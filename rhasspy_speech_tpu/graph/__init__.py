@@ -1,4 +1,4 @@
-"""Decode-graph layer: topology, HCLG expansion, dense TPU graph tensors."""
+"""Decode-graph layer: topology, HCLG expansion, dense device graph tensors."""
 
 from .dense import NEG_INF_F32, DenseGraph, dense_from_hclg, viterbi_numpy
 from .hclg import make_hclg

@@ -1,9 +1,9 @@
-"""Dense decode-graph tensors: the TPU-facing product of graph compilation.
+"""Dense decode-graph tensors: the device-facing product of graph compilation.
 
 Replaces Kaldi's on-disk HCLG.fst + LatticeFasterDecoder token machinery
 (/root/reference/kaldi/src/decoder/lattice-faster-decoder.cc:580-870) with a
 flat arc-table representation designed for frame-synchronous dense Viterbi on
-TPU: every arc emits a pdf (input epsilons are folded away at build time), so
+device: every arc emits a pdf (input epsilons are folded away at build time), so
 one decode step is a pure gather + segment-max over the arc table, batched
 over streams.
 
@@ -365,7 +365,7 @@ def chain_reorder(g: DenseGraph) -> DenseGraph:
 
 
 # ---------------------------------------------------------------------------
-# NumPy reference Viterbi (ground truth for the TPU kernel; also used by
+# NumPy reference Viterbi (ground truth for the device decoder; also used by
 # host-side tests)
 # ---------------------------------------------------------------------------
 

@@ -2,7 +2,7 @@
 
 Kaldi threads transition-ids through HCLG so lattices can recover phone
 alignments and transition probabilities (transition-model.h:159,
-lattice-to-phone-lattice.cc, lattice-add-trans-probs.cc). The dense TPU
+lattice-to-phone-lattice.cc, lattice-add-trans-probs.cc). The dense device
 graph works at the pdf level, but the phone-lattice rescore chain
 (transcribe_wav.py:148-202) needs the same recoverability — so the HCLG
 builders can intern each emitting arc's (pdf, phone, hmm position,

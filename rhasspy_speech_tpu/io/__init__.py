@@ -2,7 +2,7 @@
 
 Parsers for the pre-trained artifacts the reference downloads from
 HuggingFace (final.mdl, final.mat, final.ie, final.dubm, conf files) so the
-TPU framework can load them unchanged. Pure Python + NumPy; the parsed
+framework can load them unchanged. Pure Python + NumPy; the parsed
 weights feed the JAX forward paths.
 """
 

@@ -519,7 +519,7 @@ def compact_lattice_from_decode(
     graph,  # graph.dense.DenseGraph
 ) -> KaldiCompactLattice:
     """Export a decode lattice (ops/lattice.py) as a word-level
-    CompactLattice. Transition-id strings are left empty: the dense TPU
+    CompactLattice. Transition-id strings are left empty: the dense device
     graph folds epsilon closures at build time, so frame-level alignments
     are not retained — word-level rescoring/composition tools still apply."""
     out = KaldiCompactLattice()

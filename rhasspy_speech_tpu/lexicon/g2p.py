@@ -14,16 +14,14 @@ Phonetisaurus subprocess.
 from __future__ import annotations
 
 import itertools
+import re
 import sqlite3
+import unicodedata
 from collections.abc import Iterable
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple, Union
 
-import regex as re
-
 _SOUNDS_LIKE_PARTIAL = re.compile(r"^([^[]*)\[([^]]+)].*$")
-_INITIALISM_NO_DOTS = re.compile(r"^(?:\p{Lu}){2,}$")
-_INITIALISM_DOTS = re.compile(r"^(?:\p{L}\.){2,}$")
 _NUMBER_SPLIT = re.compile(r"(\d+(?:\.\d+)?)")
 _NUMBER = re.compile(r"^\d+(\.\d+)?$")
 
@@ -131,6 +129,20 @@ def split_words(
     return words
 
 
+def _is_initialism(run: str) -> bool:
+    """Two or more uppercase letters ("NASA"), or two or more letter-dot
+    pairs ("n.a.s.a."): the Unicode classes Lu and L of the reference's
+    regexes (g2p.py: ``^(?:\\p{Lu}){2,}$`` / ``^(?:\\p{L}\\.){2,}$``)."""
+    if len(run) >= 2 and all(unicodedata.category(c) == "Lu" for c in run):
+        return True
+    return (
+        len(run) >= 4
+        and len(run) % 2 == 0
+        and all(c.isalpha() for c in run[0::2])
+        and all(c == "." for c in run[1::2])
+    )
+
+
 def _expand_run(
     run: str, lexicon: LexiconDatabase, number_engine
 ) -> List[SplitWord]:
@@ -138,7 +150,7 @@ def _expand_run(
     if lexicon.exists(run):
         return [run]
 
-    if _INITIALISM_NO_DOTS.match(run) or _INITIALISM_DOTS.match(run):
+    if _is_initialism(run):
         return [char for char in run if char != "."]
 
     if number_engine is not None and _NUMBER.match(run):

@@ -3,7 +3,7 @@
 The reference enum carries ModelType.gmm backed by Kaldi's gmm/ tree
 (am-diag-gmm.{h,cc}); the Python GMM decode path there is dead code
 (transcribe_wav.py:238-484 commented out). This implements the capability
-TPU-first: per-frame log-likelihoods for every pdf's diagonal GMM in two
+on the device: per-frame log-likelihoods for every pdf's diagonal GMM in two
 matmuls over a component-padded parameter block —
 
     ll[b,t,p,c] = gconst[p,c] + x . (mu/var)[p,c] - 0.5 x^2 . (1/var)[p,c]
@@ -11,7 +11,7 @@ matmuls over a component-padded parameter block —
 
 (gmm/diag-gmm.cc LogLikelihoods: gconst already folds the weight,
 normalizer, and -0.5 mu^2/var terms). Both contractions are [B*T, D] x
-[D, P*C] matmuls — MXU work, padded components carry gconst = -inf.
+[D, P*C] matmuls; padded components carry gconst = -inf.
 
 Feature pipeline for GMM models: MFCC + delta-deltas
 (online-gmm-decoding / OnlineDeltaFeature, online-feature.h:530) — no
@@ -111,7 +111,7 @@ class GmmChunkModel:
         self._order = order
 
     def cast(self, dtype):
-        """Log-likelihoods stay f32 (no MXU-heavy matmuls to cast)."""
+        """Log-likelihoods stay f32 (no matmul-heavy stack to cast)."""
         return self
 
     def forward(self, windows):

@@ -6,8 +6,10 @@ with a direct compilation: the node graph of a parsed ``Nnet3Spec`` is
 planned once per (num_output_frames, subsampling) into static time ranges
 per node, then evaluated as a chain of batched jnp ops over
 ``[streams, frames, dim]`` arrays. XLA sees one straight-line program of
-matmuls + elementwise ops — no interpreter, no per-frame dispatch; the MXU
-gets [B*T, D] matmuls.
+matmuls + elementwise ops — no interpreter, no per-frame dispatch; every
+matmul is a [B*T, D] product. f32 plans run their matmuls at
+Precision.HIGHEST (no TF32 input rounding); bf16 plans (``cast``) run bf16
+with f32 accumulation.
 
 Time indexing: every node value is an array covering times
 ``[lo, hi)`` (frame indices relative to the *output* frame clock, before
@@ -626,8 +628,8 @@ class CompiledNnet3:
 
     def cast(self, dtype) -> "CompiledNnet3":
         """Copy of this plan with floating-point parameters cast to
-        ``dtype`` (e.g. jnp.bfloat16 — the MXU's native input type; matmuls
-        then run bf16 with f32 accumulation). Cast the input features to
+        ``dtype`` (e.g. jnp.bfloat16; matmuls then run bf16 with f32
+        accumulation). Cast the input features to
         the same dtype and the output back to f32 at the call site."""
         import dataclasses
 
@@ -667,6 +669,15 @@ class CompiledNnet3:
         Returns:
           [B, num_out_frames, output_dim]
         """
+        if feats.dtype == jnp.float32:
+            # a default-precision f32 matmul may round its inputs to TF32
+            with jax.default_matmul_precision("highest"):
+                return self._forward(feats, ivector)
+        return self._forward(feats, ivector)
+
+    def _forward(
+        self, feats: jnp.ndarray, ivector: Optional[jnp.ndarray]
+    ) -> jnp.ndarray:
         if self.recurrent:
             return self._forward_recurrent(feats, ivector)
 

@@ -3,11 +3,14 @@
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import logging
+import os
+import platform
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -15,33 +18,76 @@ _LOGGER = logging.getLogger(__name__)
 
 _REPO_ROOT = Path(__file__).resolve().parents[2]
 _NATIVE_DIR = _REPO_ROOT / "native"
-_LIB_PATH = _NATIVE_DIR / "build" / "librss_runtime.so"
+_SOURCE = _NATIVE_DIR / "rss_runtime.cpp"
+_BUILD_DIR = _NATIVE_DIR / "build"
+
+# -march=native lets the ADPCM wire encoder use AVX-512 where the host has
+# it; the portable flags are the fallback for toolchains that refuse it.
+_BUILD_FLAGS = (
+    ("-O3", "-fPIC", "-shared", "-std=c++17", "-march=native"),
+    ("-O3", "-fPIC", "-shared", "-std=c++17"),
+)
+
+
+def _host_cpu_flags() -> str:
+    """The host CPU's feature flags (what -march=native compiles for)."""
+    try:
+        with open("/proc/cpuinfo", "r", encoding="utf-8") as f:
+            for line in f:
+                if line.startswith(("flags", "Features")):
+                    return line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    return platform.machine()
+
+
+def library_key(source: bytes, flags: Sequence[str], cpu_flags: str) -> str:
+    """Content key of one build: the source, the compiler flags and the
+    host CPU's features. A library built from other source, with other
+    flags or for another CPU has another key and is never loaded."""
+    h = hashlib.sha256()
+    for part in (source, "\0".join(flags).encode(), cpu_flags.encode()):
+        h.update(len(part).to_bytes(8, "little"))
+        h.update(part)
+    return h.hexdigest()[:16]
+
+
+def _library_path(flags: Sequence[str]) -> Path:
+    key = library_key(_SOURCE.read_bytes(), flags, _host_cpu_flags())
+    return _BUILD_DIR / f"librss_runtime-{key}.so"
 
 
 def _build_library() -> Optional[Path]:
-    """Compile the shared library with g++ (no cmake round-trip needed)."""
-    src = _NATIVE_DIR / "rss_runtime.cpp"
-    if not src.exists():
+    """The library for this source, these flags and this host: an existing
+    build when one matches, else compiled with g++ (no cmake round-trip
+    needed). None when there is no source or no working compiler."""
+    if not _SOURCE.exists():
         return None
-    _LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
-    # -march=native is safe here: the library is always (re)built on the
-    # host that runs it (mtime-stale sources trigger a local rebuild),
-    # and the ADPCM wire encoder leans on AVX-512 when the host has it
-    cmd = [
-        "g++", "-O3", "-fPIC", "-shared", "-std=c++17", "-march=native",
-        str(src), "-o", str(_LIB_PATH),
-    ]
-    try:
-        subprocess.run(cmd, check=True, capture_output=True)
-        return _LIB_PATH
-    except subprocess.CalledProcessError:
-        cmd.remove("-march=native")  # cross/odd toolchains
-    try:
-        subprocess.run(cmd, check=True, capture_output=True)
-        return _LIB_PATH
-    except (subprocess.CalledProcessError, FileNotFoundError) as err:
-        _LOGGER.warning("native build failed (%s); using NumPy fallbacks", err)
-        return None
+    paths = [_library_path(flags) for flags in _BUILD_FLAGS]
+    for path in paths:
+        if path.exists():
+            return path
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for flags, path in zip(_BUILD_FLAGS, paths):
+        # build under a private name, then publish atomically: several
+        # processes may build at once
+        tmp = path.with_name(f"{path.name}.tmp.{os.getpid()}")
+        try:
+            subprocess.run(
+                ["g++", *flags, str(_SOURCE), "-o", str(tmp)],
+                check=True, capture_output=True,
+            )
+        except FileNotFoundError as err:
+            _LOGGER.warning("no C++ compiler (%s); using NumPy fallbacks", err)
+            return None
+        except subprocess.CalledProcessError as err:
+            _LOGGER.debug("native build with %s failed: %s", flags, err)
+            tmp.unlink(missing_ok=True)
+            continue
+        os.replace(tmp, path)
+        return path
+    _LOGGER.warning("native build failed; using NumPy fallbacks")
+    return None
 
 
 class NativeRuntime:
@@ -57,31 +103,16 @@ class NativeRuntime:
         with self._lock:
             if self._lib is None and not self._tried:
                 self._tried = True
-                src = _NATIVE_DIR / "rss_runtime.cpp"
-                stale = (
-                    _LIB_PATH.exists()
-                    and src.exists()
-                    and src.stat().st_mtime > _LIB_PATH.stat().st_mtime
-                )
-                path = (
-                    _LIB_PATH
-                    if _LIB_PATH.exists() and not stale
-                    else _build_library()
-                )
-                if path is None and _LIB_PATH.exists():
-                    # rebuild of a stale library failed (no compiler?):
-                    # the older build still works — newer entry points
-                    # are hasattr-guarded by callers
-                    path = _LIB_PATH
+                path = _build_library()
                 if path is not None:
                     try:
                         lib = ctypes.CDLL(str(path))
                         self._configure(lib)
                         self._lib = lib
                     except (OSError, AttributeError) as err:
-                        # a stale build missing required symbols (rebuild
-                        # failed on a compiler-less host) must degrade to
-                        # the NumPy fallbacks, not crash the caller
+                        # a library that does not load or lacks a required
+                        # symbol must degrade to the NumPy fallbacks, not
+                        # crash the caller
                         _LOGGER.warning(
                             "native library %s unusable (%s); using "
                             "NumPy fallbacks", path, err,
@@ -186,8 +217,10 @@ def adpcm_encode_into(
     lens = np.ascontiguousarray(lens, dtype=np.int64)
     lib = get_runtime().lib
     if lib is not None and hasattr(lib, "rss_adpcm_encode_blocks"):
-        assert samples.dtype == np.float32 and samples.flags.c_contiguous
-        assert out.dtype == np.uint8
+        if samples.dtype != np.float32 or not samples.flags.c_contiguous:
+            raise ValueError("samples must be C-contiguous float32")
+        if out.dtype != np.uint8:
+            raise ValueError("out must be uint8")
         rc = lib.rss_adpcm_encode_blocks(
             _f32p(samples),
             samples.shape[0],
@@ -363,7 +396,10 @@ class StreamPool:
         per-slot ``feed`` without the native entry point."""
         slots = np.ascontiguousarray(slots, dtype=np.int32)
         pcm = np.ascontiguousarray(pcm, dtype=np.int16)
-        assert pcm.ndim == 2 and pcm.shape[0] == slots.shape[0]
+        if pcm.ndim != 2 or pcm.shape[0] != slots.shape[0]:
+            raise ValueError(
+                f"pcm {pcm.shape} must be [len(slots)={slots.shape[0]}, n]"
+            )
         if self._lib is not None and hasattr(
             self._lib, "rss_pool_feed_i16_many"
         ):

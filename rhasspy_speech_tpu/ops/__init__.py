@@ -1,4 +1,4 @@
-"""TPU compute ops: feature frontend, acoustic forward, dense decoding."""
+"""Device compute ops: feature frontend, acoustic forward, dense decoding."""
 
 from .frontend import (
     FrontendConfig,

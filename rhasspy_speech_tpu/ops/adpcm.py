@@ -47,7 +47,7 @@ telephony quality at 16 kHz); everything after it is exact — streaming
 with ``wire="adpcm"`` produces bit-identical transcripts to the batch
 path fed the ADPCM-reconstructed audio. The reference never pays a
 wire at all (it pipes raw PCM into a same-host subprocess,
-transcribe_stream.py:66-82); this is a TPU-serving concern.
+transcribe_stream.py:66-82); this is a device-serving concern.
 
 Encode runs on the host drain (native rss_adpcm_encode_blocks, NumPy
 fallback here); decode runs inside the fused tick program as a short

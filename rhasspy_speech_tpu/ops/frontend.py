@@ -1,4 +1,4 @@
-"""Batched MFCC feature frontend (Kaldi-compatible numerics, TPU-first).
+"""Batched MFCC feature frontend (Kaldi-compatible numerics).
 
 Replaces Kaldi's streaming MFCC pipeline (reference:
 kaldi/src/feat/feature-mfcc.cc:28-110 MfccComputer::Compute,
@@ -7,7 +7,7 @@ kaldi/src/feat/mel-computations.cc MelBanks) with one batched JAX function
 over ``[streams, samples]``. All per-frame work — framing, DC removal,
 pre-emphasis, Povey window, rFFT, power spectrum, mel filterbank, log, DCT,
 cepstral lifter — happens inside a single jitted function so XLA fuses the
-elementwise stages into the matmuls (mel apply and DCT ride the MXU).
+elementwise stages around the rFFT and the mel and DCT matmuls.
 
 Numerics follow Kaldi exactly (mel scale 1127*ln(1+f/700), DCT-II with
 orthonormal scaling, lifter 1+Q/2*sin(pi*i/Q), eps floor before log) so that
@@ -308,7 +308,8 @@ def mfcc_batch(
     power = jnp.real(spec) ** 2 + jnp.imag(spec) ** 2  # [B, T, padded//2+1]
 
     # Small matmuls carrying feature numerics: force full f32 accumulation
-    # (TPU defaults can drop to bf16 inputs, which audibly perturbs log-mel).
+    # (a default-precision f32 matmul may round its inputs to TF32 or bf16,
+    # which audibly perturbs log-mel).
     mel = jax.lax.dot_general(
         power.astype(params.mel_weights.dtype),
         params.mel_weights,

@@ -18,6 +18,7 @@ periodic estimates every ivector_period frames for streaming.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -27,6 +28,19 @@ import jax
 import jax.numpy as jnp
 
 from ..io.ivector import DiagGmm, IvectorExtractor, OnlineIvectorConfig
+
+
+def _f32_exact(fn):
+    """Trace ``fn``'s matmuls at Precision.HIGHEST: a default-precision f32
+    matmul may round its inputs to TF32 on the GPU, which can flip the
+    top-k Gaussian selection and moves the i-vector solve."""
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with jax.default_matmul_precision("highest"):
+            return fn(*args, **kwargs)
+
+    return wrapped
 
 
 @dataclass(frozen=True)
@@ -97,6 +111,7 @@ def splice_frames(feats: jnp.ndarray, left: int, right: int) -> jnp.ndarray:
     return jnp.concatenate(parts, axis=-1)
 
 
+@_f32_exact
 def apply_lda(spliced: jnp.ndarray, params: IvectorParams) -> jnp.ndarray:
     """LDA/affine transform; final.mat may have a trailing offset column."""
     lda = params.lda
@@ -106,6 +121,7 @@ def apply_lda(spliced: jnp.ndarray, params: IvectorParams) -> jnp.ndarray:
     return spliced @ lda.T
 
 
+@_f32_exact
 def splice_lda(feats: jnp.ndarray, params: IvectorParams) -> jnp.ndarray:
     """Fused splice(+-ctx) -> LDA: one matmul per splice offset, summed.
 
@@ -130,6 +146,7 @@ def splice_lda(feats: jnp.ndarray, params: IvectorParams) -> jnp.ndarray:
     return out
 
 
+@_f32_exact
 def gmm_log_likes(lda_feats: jnp.ndarray, params: IvectorParams) -> jnp.ndarray:
     """[B, T, D] -> [B, T, I] per-Gaussian log-likelihoods
     (DiagGmm::LogLikelihoods: gconst + m'Sx - 0.5 x'Sx)."""
@@ -151,9 +168,9 @@ def gselect_posteriors(
     k = min(params.num_gselect, I)
     if k <= 8:
         # k rounds of argmax+mask beat lax.top_k's sort lowering for the
-        # tiny k this pipeline uses (num_gselect=5): extract_ivectors
-        # 103 -> 71 ms at B=1024 on TPU. argmax takes the first index on
-        # ties — the same top-k set, Kaldi-equivalent pruning.
+        # tiny k this pipeline uses (num_gselect=5). argmax takes the
+        # first index on ties — the same top-k set, Kaldi-equivalent
+        # pruning.
         masked = log_likes
         vals, idxs = [], []
         for _ in range(k):
@@ -181,6 +198,7 @@ def gselect_posteriors(
     return dense
 
 
+@_f32_exact
 def accumulate_stats(
     lda_feats: jnp.ndarray,
     post: jnp.ndarray,
@@ -204,6 +222,7 @@ def accumulate_stats(
     return gamma, X
 
 
+@_f32_exact
 def solve_ivector(
     gamma: jnp.ndarray, X: jnp.ndarray, params: IvectorParams
 ) -> jnp.ndarray:
@@ -220,8 +239,8 @@ def solve_ivector(
     quad = jnp.einsum("bi,ikl->bkl", gamma, params.U)
     quad = quad + jnp.eye(K, dtype=quad.dtype)[None]
     # quad = I + sum_i gamma_i U_i with gamma_i >= 0 and U_i PSD, so it is
-    # symmetric positive definite: Cholesky beats the general LU solve
-    # (batched [B, 100, 100]: 63 -> 40 ms at B=1024 on TPU).
+    # symmetric positive definite, so Cholesky replaces the general LU
+    # solve.
     factor = jax.scipy.linalg.cho_factor(quad)
     ivec = jax.scipy.linalg.cho_solve(factor, linear[..., None])[..., 0]
     return ivec.at[:, 0].add(-params.prior_offset)

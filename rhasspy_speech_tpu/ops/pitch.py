@@ -1,4 +1,4 @@
-"""Kaldi pitch features (compute-kaldi-pitch-feats) as batched TPU ops.
+"""Kaldi pitch features (compute-kaldi-pitch-feats) as batched device ops.
 
 Implements the Ghahremani et al. 2014 pitch tracker the reference's feature
 pipeline can append to MFCCs (online2/online-nnet2-feature-pipeline.cc:90-140,

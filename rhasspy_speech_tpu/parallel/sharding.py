@@ -1,14 +1,14 @@
 """Stream-parallel sharding over a device mesh.
 
 The reference has no distributed execution at all (SURVEY §2.3: asyncio
-subprocess overlap only). The TPU-native scale-out axis is **concurrent
+subprocess overlap only). The scale-out axis here is **concurrent
 streams**: decode state is embarrassingly parallel over streams, so the
-design shards the batch dimension across an ICI mesh with pjit and keeps
-the decode graph + acoustic model replicated. Cross-chip traffic is only
-the final scalar metrics reduction (psum), which rides ICI.
+design shards the batch dimension across a 1-D device mesh with pjit and
+keeps the decode graph + acoustic model replicated. Cross-device traffic
+is only the final scalar metrics reduction (psum). The cards of one host
+are joined all to all, so the mesh follows the stream axis alone.
 
-With n chips the same compiled program serves n× the streams; multi-slice
-deployments nest ("stream", "slice") axes, still batch-sharded.
+With n devices the same compiled program serves n× the streams.
 """
 
 from __future__ import annotations
@@ -27,20 +27,16 @@ def make_stream_mesh(
     axis_name: str = "streams",
     devices: Optional[Sequence] = None,
 ) -> Mesh:
-    """1-D mesh over all (or the first n) local devices."""
+    """1-D mesh over all (or the first n) of ``devices`` (default: the
+    default backend's devices). Too few devices is an error: the mesh
+    never moves to another platform."""
     if devices is None:
         devices = jax.devices()
-        if n_devices is not None and len(devices) < n_devices:
-            # Fall back to the (possibly virtualized) CPU platform when the
-            # default platform has too few devices — e.g. one real TPU chip
-            # plus xla_force_host_platform_device_count CPU devices.
-            cpu = jax.devices("cpu")
-            if len(cpu) >= n_devices:
-                devices = cpu
     if n_devices is not None:
         if len(devices) < n_devices:
             raise ValueError(
-                f"need {n_devices} devices, have {len(devices)}"
+                f"need {n_devices} devices, have {len(devices)} "
+                f"({devices[0].platform if devices else 'none'})"
             )
         devices = devices[:n_devices]
     return Mesh(np.asarray(devices), (axis_name,))

@@ -1,16 +1,16 @@
 """Multi-chip batch transcription: the stream-sharded serving facade.
 
 The reference serves one process per host with no distributed execution
-(SURVEY §2.3); the TPU-native scale-out axis is concurrent streams.
+(SURVEY §2.3); the scale-out axis is concurrent streams.
 ShardedWavTranscriber is Nnet3WavTranscriber with its batch device
 programs partitioned over a 1-D stream mesh: inputs are placed with a
 ``P("streams", None)`` sharding and XLA partitions the MFCC, i-vector,
 TDNN-F, and Viterbi programs over the mesh with zero collectives (every
 op is per-stream; only host word assembly sees gathered outputs).
 
-On n chips the same compiled step serves n× the streams. Validated on
-the virtual CPU mesh (tests/test_parallel.py) and by the driver's
-multichip dryrun (__graft_entry__.dryrun_multichip).
+On n devices the same compiled step serves n× the streams. Validated on
+the virtual CPU mesh (tests/test_parallel.py) and on four GPUs by
+``python chip_smoke.py --four``.
 """
 
 from __future__ import annotations

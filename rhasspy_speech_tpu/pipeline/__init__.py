@@ -1,4 +1,4 @@
-"""Training + transcription pipelines (the reference's L5 layer, TPU-native).
+"""Training + transcription pipelines (the reference's L5 layer, in-process).
 
 train_model compiles per-user decode artifacts (grammar FST, lexicon,
 n-gram LM, dense HCLG tensors); the transcribers run WAVs / PCM streams

@@ -1,7 +1,7 @@
 """On-disk training artifacts (the train_dir layout).
 
 Mirrors the reference's artifact roles (kaldi.py:38-70: data/lang_<suffix>/
-{G.fst, G.fuzzy.fst, words.txt}, graph_<suffix>/HCLG.fst) with TPU-native
+{G.fst, G.fuzzy.fst, words.txt}, graph_<suffix>/HCLG.fst) with device-native
 formats: FSTs as text (host-side compose/rescore inputs), the decode graph
 as DenseGraph npz tensors ready for device upload.
 """

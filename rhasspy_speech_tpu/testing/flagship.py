@@ -114,25 +114,44 @@ def write_flagship_model_dir(
     return model_dir
 
 
+def flagship_intents_dict() -> dict:
+    """The committed flagship grammar (testing/flagship_grammar.py) as the
+    sentence-file dict ``train_model`` takes: one intent over all its
+    templates and lists."""
+    from .flagship_grammar import FLAGSHIP_GRAMMAR
+
+    return {
+        "language": FLAGSHIP_GRAMMAR["language"],
+        "intents": {
+            "All": {"data": [{"sentences": FLAGSHIP_GRAMMAR["sentences"]}]}
+        },
+        "lists": FLAGSHIP_GRAMMAR["lists"],
+    }
+
+
+def flagship_intents():
+    """:func:`flagship_intents_dict` as :class:`Intents`."""
+    from ..grammar import Intents
+
+    return Intents.from_dict(flagship_intents_dict())
+
+
 def build_flagship_graph(order: int = 3, with_fuzzy: bool = True,
                          num_pdfs: int = 0):
-    """Build the flagship decode graph: the FULL test_en.yaml grammar
-    (3,763 sentences) -> order-N ARPA G (Witten-Bell) -> LG ->
-    triphone-machinery HCLG expansion (graph/context.py N=3/P=1 windows)
-    -> dense decode tensors. Shared by bench.py, the frontier-curve
-    example, and the frontier regression tests so they all measure the
-    same graph class.
+    """Build the flagship decode graph: the committed voice-assistant
+    grammar (:func:`flagship_intents`) -> order-N ARPA G (Witten-Bell) ->
+    LG -> triphone-machinery HCLG expansion (graph/context.py N=3/P=1
+    windows) -> dense decode tensors. Shared by bench.py, chip_smoke.py,
+    the frontier-curve example and the frontier regression tests so they
+    all measure the same graph.
 
     Returns (graph, g_fuzzy_or_None, lang). Raising ``num_pdfs`` pads the
     pdf axis like a real chain model that computes all its outputs.
     """
     import io as _io
-    import os as _os
     import re as _re
 
-    import yaml as _yaml
-
-    from ..grammar import Intents, compile_intents
+    from ..grammar import compile_intents
     from ..graph.context import make_hclg_from_tree
     from ..graph.dense import dense_from_hclg
     from ..io.tree import ContextDependencyTree
@@ -141,21 +160,7 @@ def build_flagship_graph(order: int = 3, with_fuzzy: bool = True,
     from ..lang.ngram import arpa_to_fst, make_arpa_from_fst
     from ..lexicon import LexiconDatabase
 
-    yaml_path = "/root/reference/tests/test_en.yaml"
-    if _os.path.exists(yaml_path):
-        raw = _yaml.safe_load(open(yaml_path, encoding="utf-8"))
-        sentences, lists = raw["sentences"], raw.get("lists", {})
-    else:  # fallback grammar (environment without the reference checkout)
-        sentences = ["turn (on|off) [the] (light|fan)", "never mind"]
-        lists = {}
-
-    intents = Intents.from_dict(
-        {
-            "language": "en",
-            "intents": {"All": {"data": [{"sentences": sentences}]}},
-            "lists": lists,
-        }
-    )
+    intents = flagship_intents()
     ctx = compile_intents(
         intents, _io.StringIO(), LexiconDatabase(), number_language="en"
     )

@@ -3,7 +3,7 @@
 The reference threads a KaldiTools object (paths to the Kaldi/OpenFST/
 OpenGrm/Phonetisaurus installations, reference: rhasspy_speech/tools.py:12-64)
 through every trainer and transcriber so they can spawn subprocesses. This
-framework runs everything in-process — on TPU for the numeric path, host
+framework runs everything in-process — on the GPU for the numeric path, host
 Python/C++ for graph compilation — so the tool paths are meaningless; the
 class exists so `from rhasspy_speech import KaldiTools`-style code keeps
 importing and constructing, and a loud error fires if someone tries to

@@ -1,17 +1,21 @@
 """Persistent XLA compilation cache for serving processes.
 
-The flagship programs cost 24-88 s of XLA compilation per batch shape
-(BENCH_r02); within one process the shape buckets bound recompiles, but a
-fresh serving process used to re-pay every compile. Enabling JAX's
-persistent compilation cache keyed under a stable directory makes the
-second process's time-to-first-transcript seconds instead of minutes.
+Within one process the shape buckets bound recompiles, but a fresh
+serving process would re-pay every flagship compile. JAX's persistent
+compilation cache makes the second process's time-to-first-transcript
+seconds instead of minutes.
 
 The reference has no equivalent concern (Kaldi binaries are AOT C++); this
-is the TPU-native counterpart of "the decoder binary is already compiled".
+is the counterpart of "the decoder binary is already compiled".
+
+Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and this
+module configures nothing. Otherwise the cache lives at one fixed
+directory inside the checkout (:data:`REPO_CACHE_DIR`): the directory is
+part of what a later process must find again, so it never depends on the
+home directory, the host, the process or the time.
 
 Enabled automatically by the serving entry points (AcousticModel /
-StreamScheduler); opt out with RSTPU_NO_COMPILE_CACHE=1 or point the
-directory elsewhere with RSTPU_COMPILE_CACHE_DIR.
+StreamScheduler); opt out with RSTPU_NO_COMPILE_CACHE=1.
 """
 
 from __future__ import annotations
@@ -20,84 +24,49 @@ import logging
 import os
 import time
 from pathlib import Path
-from typing import Optional, Union
+from typing import Optional
 
 _LOGGER = logging.getLogger(__name__)
+
+ENV_VAR = "JAX_COMPILATION_CACHE_DIR"
+REPO_CACHE_DIR = Path(__file__).resolve().parents[2] / ".jax_cache"
 
 _enabled_dir: Optional[str] = None
 
 
-def _host_fingerprint() -> str:
-    """CPU-feature fingerprint: XLA:CPU AOT results are machine-specific
-    (loading an executable compiled with other CPU features logs SIGILL
-    warnings and can misexecute), so each distinct host gets its own cache
-    subdirectory. TPU executables key on the accelerator, which JAX's own
-    cache key covers."""
-    import hashlib
-
-    flags = ""
-    try:
-        with open("/proc/cpuinfo", "r", encoding="utf-8") as f:
-            for line in f:
-                if line.startswith(("flags", "Features")):
-                    flags = line
-                    break
-    except OSError:
-        import platform
-
-        flags = platform.processor() or platform.machine()
-    return hashlib.sha1(flags.encode()).hexdigest()[:12]
+def cache_dir() -> Path:
+    """Where compiled programs persist: ``$JAX_COMPILATION_CACHE_DIR`` when
+    set, else :data:`REPO_CACHE_DIR`."""
+    env = os.environ.get(ENV_VAR)
+    return Path(env) if env else REPO_CACHE_DIR
 
 
-def default_cache_dir() -> Path:
-    env = os.environ.get("RSTPU_COMPILE_CACHE_DIR")
-    if env:
-        return Path(env)
-    base = os.environ.get("XDG_CACHE_HOME") or str(Path.home() / ".cache")
-    return Path(base) / "rhasspy_speech_tpu" / "xla_cache" / _host_fingerprint()
-
-
-def enable_compilation_cache(
-    cache_dir: Optional[Union[str, Path]] = None,
-) -> Optional[str]:
+def enable_compilation_cache() -> Optional[str]:
     """Turn on JAX's persistent compilation cache (idempotent).
 
     Returns the active cache directory, or None when disabled via
-    RSTPU_NO_COMPILE_CACHE. Safe to call before or after JAX backends
-    initialize; programs compiled after the call are persisted and
-    reloaded across processes (same program fingerprint + compile options
-    + platform).
+    RSTPU_NO_COMPILE_CACHE or skipped on the CPU backend. Safe to call
+    before or after JAX backends initialize; programs compiled after the
+    call are persisted and reloaded across processes (same program
+    fingerprint + compile options + platform).
     """
     global _enabled_dir
     if os.environ.get("RSTPU_NO_COMPILE_CACHE"):
         return None
+    env = os.environ.get(ENV_VAR)
+    if env:
+        return env  # JAX configured itself from the variable
 
     import jax
 
     # XLA:CPU AOT deserialization is not trustworthy: entries recorded on
     # this very host reload with "machine feature +prefer-no-scatter /
-    # +prefer-no-gather not supported" (cpu_aot_loader.cc) — XLA-internal
-    # pseudo-features the loader's host check doesn't model — and the
-    # resulting executables have misexecuted (observed: wrong streaming
-    # transcripts under tests' JAX_PLATFORMS=cpu). The cache exists to
-    # kill the TPU cold start; skip it entirely when compute lands on the
-    # CPU backend unless explicitly forced. The effective platform is the
-    # pinned default device's when one is set (a TPU plugin can register
-    # itself even under JAX_PLATFORMS=cpu, so default_backend() alone
-    # misreports where programs actually compile).
-    dev = getattr(jax.config, "jax_default_device", None)
-    if dev is None:
-        platform = jax.default_backend()
-    elif isinstance(dev, str):
-        platform = dev
-    else:
-        platform = getattr(dev, "platform", jax.default_backend())
-    if platform == "cpu" and not os.environ.get("RSTPU_COMPILE_CACHE_CPU"):
-        _LOGGER.debug(
-            "persistent compilation cache skipped on the CPU backend "
-            "(XLA:CPU AOT reload is unreliable; set RSTPU_COMPILE_CACHE_CPU=1 "
-            "to force)"
-        )
+    # +prefer-no-gather not supported" (cpu_aot_loader.cc) and the
+    # resulting executables have misexecuted (wrong streaming
+    # transcripts). The cache exists for the accelerator's cold start, so
+    # skip it on the CPU backend unless the variable above asks for it.
+    if jax.default_backend() == "cpu":
+        _LOGGER.debug("persistent compilation cache skipped on the CPU backend")
         return None
 
     # Respect an embedding application's own cache configuration: if the
@@ -112,13 +81,13 @@ def enable_compilation_cache(
         )
         return existing
 
-    path = str(Path(cache_dir) if cache_dir is not None else default_cache_dir())
+    path = str(REPO_CACHE_DIR)
     if _enabled_dir == path:
         return path
 
     try:
-        Path(path).mkdir(parents=True, exist_ok=True)
-        _trim_cache_dir(Path(path))
+        REPO_CACHE_DIR.mkdir(parents=True, exist_ok=True)
+        _trim_cache_dir(REPO_CACHE_DIR)
         jax.config.update("jax_compilation_cache_dir", path)
         # Persist any program whose compile took noticeable time (the
         # serving programs range from ~1 s chunk steps to minute-long

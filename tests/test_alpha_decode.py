@@ -93,7 +93,7 @@ def test_tie_break_bit_exact():
 
 
 def test_onehot_fold_used_and_exact():
-    """RSTPU_ONEHOT=1 activates the MXU one-hot am fold; outputs stay
+    """RSTPU_ONEHOT=1 activates the one-hot am fold; outputs stay
     bit-identical to the gather path (opt-in: on the flagship graph the
     fold is a perf wash but a 9x compile-time hit)."""
     rng = np.random.RandomState(19)
@@ -109,7 +109,7 @@ def test_onehot_fold_used_and_exact():
 
 def test_default_dispatch_is_bp():
     """viterbi_decode's default impl is the bp path (alpha is opt-in via
-    RSTPU_DECODE_IMPL=alpha; it measured slower end-to-end on TPU)."""
+    RSTPU_DECODE_IMPL=alpha; its random-gather backtrace offsets the forward)."""
     rng = np.random.RandomState(23)
     dense = _make_src_pdf_graph(rng, num_states=15, extra_arcs=30)
     layout = make_decode_graph(dense)

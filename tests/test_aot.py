@@ -126,3 +126,71 @@ def test_scheduler_save_aot_roundtrip(aot_profile):
     s2.finish(sid)
     s2.run_until_idle()
     assert s2.poll(sid) == ["turn on light"]
+
+
+@pytest.mark.parametrize(
+    "backend, platform", [("gpu", "cuda"), ("cpu", "cpu")]
+)
+def test_export_platform_names_the_lowering_platform(backend, platform):
+    """jax.export lowers a GPU program for "cuda"; the blob key carries the
+    lowering platform, so a CPU blob never serves a GPU process."""
+    import jax
+    import jax.numpy as jnp
+
+    from rhasspy_speech_tpu.utils.aot import (
+        AotStore,
+        _args_platform,
+        export_platform,
+    )
+
+    assert export_platform(backend) == platform
+    store = AotStore("/nonexistent")
+    specs = (jax.ShapeDtypeStruct((2, 3), jnp.float32),)
+    assert store._path("f", specs, platform) != store._path(
+        "f", specs, "rocm" if platform == "cuda" else "cuda"
+    )
+    assert _args_platform((jnp.zeros(3),)) == export_platform(
+        jax.default_backend()
+    )
+
+
+def test_aot_export_for_cuda_lowers_here():
+    """The "cuda" lowering works without a card (jax.export cross-lowers);
+    the old "gpu" name does not."""
+    import jax
+    import jax.numpy as jnp
+    from jax import export as jax_export
+
+    spec = jax.ShapeDtypeStruct((4,), jnp.float32)
+    exp = jax_export.export(jax.jit(lambda x: x * 2.0), platforms=["cuda"])(spec)
+    assert exp.platforms == ("cuda",)
+    with pytest.raises(Exception):
+        jax_export.export(jax.jit(lambda x: x), platforms=["gpu"])(spec)
+
+
+def test_store_round_trip_needs_no_flatbuffers(tmp_path):
+    """jax.export's own serializer needs the optional flatbuffers package;
+    the store must save and load without it (serving hosts may lack it)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    script = f"""
+import sys
+sys.modules["flatbuffers"] = None
+sys.path.insert(0, {str(repo)!r})
+import jax.numpy as jnp
+from rhasspy_speech_tpu.utils.aot import AotStore
+args = (jnp.arange(4.0),)
+AotStore({str(tmp_path)!r}).save("f", lambda x: (x * 2.0, x + 1.0), args)
+fn = AotStore({str(tmp_path)!r}).load("f", args)
+a, b = fn(*args)
+assert a.tolist() == [0.0, 2.0, 4.0, 6.0] and b.tolist() == [1.0, 2.0, 3.0, 4.0]
+print("ROUND_TRIP_OK")
+"""
+    proc = subprocess.run(
+        [sys.executable, "-c", script], capture_output=True, text=True,
+        timeout=300,
+    )
+    assert "ROUND_TRIP_OK" in proc.stdout, proc.stderr[-3000:]

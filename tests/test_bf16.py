@@ -1,7 +1,7 @@
 """bf16 operating point: transcripts must match f32 exactly; logits stay
 within bf16-roundoff bounds (VERDICT r2 item 2 — verified, not just shipped).
 
-The MXU's native input type is bfloat16 (matmuls accumulate in f32); the
+bfloat16 matmul inputs (accumulating in f32) are the fast path; the
 serving path exposes it as compute_dtype="bfloat16" on Nnet3WavTranscriber.
 Correctness bar: exact transcript match (the reference's own bar,
 tests/test_en_US-zamia.py:54-59).

@@ -1,4 +1,4 @@
-"""TPU dense Viterbi decoder tests vs the NumPy reference DP."""
+"""Dense Viterbi decoder tests vs the NumPy reference DP."""
 
 import pytest
 import numpy as np
@@ -148,7 +148,7 @@ def test_nbest_two_path_graph():
 
 
 def test_device_decoder_on_grammar_graph():
-    """TPU decoder decodes the real grammar-built dense graph (same setup as
+    """The device decoder decodes the real grammar-built dense graph (same setup as
     test_graph.py) with oracle posteriors, batched over two streams."""
     from tests.test_graph import LEXICON, _phone_frames
     import io as _io
@@ -578,7 +578,7 @@ def _make_src_pdf_graph(rng, num_states=16, extra_arcs=50) -> DenseGraph:
 def _hubby_graph(rng, num_states=40, width=2):
     """src-pdf-folded graph with genuine hub states (in-degree far above
     any slot width) — shared fixture for the hub-handling paths of the
-    alternative decode implementations (alpha decode, Pallas kernel)."""
+    alternative decode implementations (alpha decode, a fused kernel)."""
     g = _make_src_pdf_graph(rng, num_states=num_states, extra_arcs=60)
     hub_arcs = []
     for hub in (num_states - 1, num_states // 2):

@@ -236,3 +236,28 @@ def test_dense_sub_batching_matches_whole_batch(trained):
     assert (mode, arg) == ("dense", 1)
     want_n = whole.transcribe_pcm_batch(pcms, nbest=2)
     assert small_k.transcribe_pcm_batch(pcms, nbest=2) == want_n
+
+
+class _Device:
+    def __init__(self, stats):
+        self._stats = stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+@pytest.mark.parametrize(
+    "stats, budget",
+    [
+        ({"bytes_limit": 80 * 2**30, "bytes_in_use": 0}, 15 * 2**30),
+        ({"bytes_limit": 16 * 2**30}, 3 * 2**30),
+        (None, DEFAULT_DECODE_BUDGET),
+        ({}, DEFAULT_DECODE_BUDGET),
+    ],
+)
+def test_decode_budget_follows_reported_memory(stats, budget):
+    """3/16 of the device's reported memory limit; the 16 GiB device's
+    share where the device reports none (the CPU backend)."""
+    from rhasspy_speech_tpu.pipeline.transcribe import default_decode_budget
+
+    assert default_decode_budget(_Device(stats)) == budget

@@ -99,3 +99,38 @@ def test_split_words(lexicon: LexiconDatabase) -> None:
     # Initialisms
     assert split_words("NASA", lexicon, engine) == ["N", "A", "S", "A"]
     assert split_words("A.B.C.", lexicon, engine) == ["A", "B", "C"]
+
+
+@pytest.mark.parametrize(
+    "run, expected",
+    [
+        # today's behaviour of the Unicode-class regexes this replaces:
+        # ^(?:\p{Lu}){2,}$ and ^(?:\p{L}\.){2,}$
+        ("NASA", True), ("AB", True), ("ÉTÉ", True), ("ΣΩ", True),
+        ("ДНК", True), ("N.A.S.A.", True), ("n.a.", True),
+        ("A", False), ("Ab", False), ("N.A", False), ("A.", False),
+        ("ǅǅ", False), ("ⒶⒷ", False), ("ⅠⅡ", False), ("1.2.", False),
+        ("a.b.c", False), ("USA2", False), ("nasa", False),
+    ],
+)
+def test_initialism_detection(run, expected):
+    from rhasspy_speech_tpu.lexicon.g2p import _is_initialism
+
+    assert _is_initialism(run) is expected
+
+
+@pytest.mark.parametrize(
+    "item, groups",
+    [("[hel]lo", ("", "hel")), ("hel[lo]", ("hel", "lo")),
+     ("a[b]c[d]", ("a", "b")), ("abc", None), ("[]x", None), ("x[y", None)],
+)
+def test_sounds_like_partial_pattern(item, groups):
+    from rhasspy_speech_tpu.lexicon.g2p import _SOUNDS_LIKE_PARTIAL
+
+    m = _SOUNDS_LIKE_PARTIAL.match(item)
+    assert (m.groups() if m else None) == groups
+
+
+def test_split_words_spells_initialisms(lexicon: LexiconDatabase) -> None:
+    assert split_words("NASA test", lexicon, None) == ["N", "A", "S", "A", "test"]
+    assert split_words("n.a. test", lexicon, None) == ["n", "a", "test"]

@@ -109,7 +109,7 @@ def test_plain_lattice_converts_to_compact():
 
 
 def test_export_decode_lattice(tmp_path):
-    """A TPU decode lattice exports to CompactLattice whose best path (word
+    """A device decode lattice exports to CompactLattice whose best path (word
     sequence + cost) matches the in-memory lattice's."""
     from rhasspy_speech_tpu.fst.core import EPS_ID
     from rhasspy_speech_tpu.fst.ops import shortest_path

@@ -258,3 +258,45 @@ def test_stream_pool_feed_many_batched_and_fallback(monkeypatch):
             pool.read(s0, 60), pcm[2].astype(np.float32)
         )
         monkeypatch.undo()
+
+
+@pytest.mark.parametrize("part", ["source", "flags", "cpu"])
+def test_library_key_changes_with_source_flags_or_host(part):
+    """A build is keyed on its source, its flags and the host CPU, so a
+    library built elsewhere (or from older source) is never loaded."""
+    from rhasspy_speech_tpu.native.runtime import library_key
+
+    base = dict(source=b"int f();", flags=("-O3", "-march=native"),
+                cpu_flags="sse4_2 avx2")
+    changed = dict(base)
+    if part == "source":
+        changed["source"] = b"int g();"
+    elif part == "flags":
+        changed["flags"] = ("-O3",)
+    else:
+        changed["cpu_flags"] = "sse4_2 avx2 avx512f"
+    assert library_key(**base) == library_key(**base)
+    assert library_key(**changed) != library_key(**base)
+
+
+def test_loaded_library_is_the_keyed_build():
+    from rhasspy_speech_tpu.native import runtime
+
+    assert get_runtime().lib is not None
+    path = runtime._library_path(runtime._BUILD_FLAGS[0])
+    alt = runtime._library_path(runtime._BUILD_FLAGS[1])
+    assert path.exists() or alt.exists()
+    assert path.name.startswith("librss_runtime-") and path != alt
+
+
+def test_native_entry_points_reject_bad_input():
+    from rhasspy_speech_tpu.native.runtime import adpcm_encode_into
+
+    with pytest.raises(ValueError):
+        adpcm_encode_into(
+            np.zeros((2, 320), np.float64), np.array([320, 320]), 160,
+            np.zeros((2, 200), np.uint8),
+        )
+    pool = StreamPool(2, 1600)
+    with pytest.raises(ValueError):
+        pool.feed_many(np.array([0, 1], np.int32), np.zeros((3, 10), np.int16))

@@ -470,7 +470,7 @@ def test_switch_descriptor_recurrent():
 
 
 def test_bfloat16_compute_dtype(tmp_path):
-    """compute_dtype='bfloat16' runs the AM in MXU-native precision with
+    """compute_dtype='bfloat16' runs the AM in bf16 precision with
     f32 outputs; decodes stay correct and the forward stays close to f32."""
     import numpy as np
     import jax.numpy as jnp

@@ -369,3 +369,13 @@ def test_mesh_quarantine_does_not_stall_other_shards(mesh, tmp_path):
     assert sched.error(bad_sid) is not None, "runaway lane must quarantine"
     for sid in good_sids:
         assert sched.poll(sid) == [text], sched.poll(sid)
+
+
+@pytest.mark.parametrize("n_devices, devices", [(9, None), (2, 1)])
+def test_make_stream_mesh_raises_on_too_few_devices(n_devices, devices):
+    """Too few devices is an error: the mesh never falls back to another
+    platform's devices."""
+    if devices is not None:
+        devices = jax.devices()[:devices]
+    with pytest.raises(ValueError, match="need"):
+        make_stream_mesh(n_devices, devices=devices)

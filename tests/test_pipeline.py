@@ -18,6 +18,7 @@ from rhasspy_speech_tpu.pipeline import (
 )
 from rhasspy_speech_tpu.pipeline.train import train_model_sync
 from rhasspy_speech_tpu.testing import build_synthetic_profile, synthesize_sentence
+from rhasspy_speech_tpu.testing.flagship import flagship_intents_dict
 
 LEXICON = {
     "turn": ["t", "er", "n"],
@@ -342,18 +343,8 @@ def test_retrain_overwrites(profile_and_train, tmp_path):
 
 
 def test_full_scale_grammar_decode(tmp_path):
-    """Full test_en.yaml grammar (3763 sentences) -> dense graph -> decode a
-    synthesized sentence exactly."""
-    import os
-
-    import yaml
-
-    path = "/root/reference/tests/test_en.yaml"
-    if not os.path.exists(path):
-        import pytest
-
-        pytest.skip("reference fixture unavailable")
-    raw = yaml.safe_load(open(path, encoding="utf-8"))
+    """The committed flagship grammar (3,701 sentences) -> dense graph ->
+    decode synthesized sentences exactly."""
     import io as _io
     import re
 
@@ -361,11 +352,7 @@ def test_full_scale_grammar_decode(tmp_path):
     from rhasspy_speech_tpu.lexicon import LexiconDatabase
     from rhasspy_speech_tpu.testing import build_synthetic_profile
 
-    intents_dict = {
-        "language": raw["language"],
-        "intents": {"All": {"data": [{"sentences": raw["sentences"]}]}},
-        "lists": raw.get("lists", {}),
-    }
+    intents_dict = flagship_intents_dict()
     ctx = compile_intents(
         Intents.from_dict(intents_dict), _io.StringIO(), LexiconDatabase(),
         number_language="en",
@@ -390,17 +377,7 @@ def test_full_scale_grammar_decode(tmp_path):
 
 
 def test_full_scale_arpa_decode(tmp_path):
-    """Full test_en.yaml ARPA graph (~3k states): decode + fuzzy accept."""
-    import os
-
-    import yaml
-
-    path = "/root/reference/tests/test_en.yaml"
-    if not os.path.exists(path):
-        import pytest
-
-        pytest.skip("reference fixture unavailable")
-    raw = yaml.safe_load(open(path, encoding="utf-8"))
+    """The committed flagship grammar's ARPA graph: decode + fuzzy accept."""
     import io as _io
     import re
 
@@ -408,11 +385,7 @@ def test_full_scale_arpa_decode(tmp_path):
     from rhasspy_speech_tpu.lexicon import LexiconDatabase
     from rhasspy_speech_tpu.testing import build_synthetic_profile
 
-    intents_dict = {
-        "language": raw["language"],
-        "intents": {"All": {"data": [{"sentences": raw["sentences"]}]}},
-        "lists": raw.get("lists", {}),
-    }
+    intents_dict = flagship_intents_dict()
     ctx = compile_intents(
         Intents.from_dict(intents_dict), _io.StringIO(), LexiconDatabase(),
         number_language="en",
@@ -602,20 +575,19 @@ def test_train_with_kneser_ney(tmp_path):
 
 def test_real_wavs_through_full_scale_graph(tmp_path):
     """The reference's real speech fixtures (tests/wav/*.wav, incl. the
-    out-of-grammar 'spell' negatives) run through the full test_en.yaml
-    pipeline without crashing, and fuzzy-gated output is closed over the
-    grammar: every non-empty transcript uses only grammar vocabulary
-    (test_en.py:40-65's acceptance/rejection structure; exact transcripts
-    need the real acoustic model, which is not downloadable here)."""
+    out-of-grammar 'spell' negatives) run through the full-scale flagship
+    grammar pipeline without crashing, and fuzzy-gated output is closed
+    over the grammar: every non-empty transcript uses only grammar
+    vocabulary (test_en.py:40-65's acceptance/rejection structure; exact
+    transcripts need the real acoustic model, which is not downloadable
+    here). The WAVs come from RSTPU_FIXTURES_DIR/wav."""
     import os
     import wave as wave_mod
 
-    import yaml
-
-    path = "/root/reference/tests/test_en.yaml"
-    wav_dir = "/root/reference/tests/wav"
-    if not (os.path.exists(path) and os.path.isdir(wav_dir)):
-        pytest.skip("reference fixtures unavailable")
+    fixtures = os.environ.get("RSTPU_FIXTURES_DIR")
+    wav_dir = os.path.join(fixtures, "wav") if fixtures else None
+    if wav_dir is None or not os.path.isdir(wav_dir):
+        pytest.skip("RSTPU_FIXTURES_DIR/wav (reference WAV fixtures) not set")
 
     import io as _io
     import re
@@ -623,12 +595,7 @@ def test_real_wavs_through_full_scale_graph(tmp_path):
     from rhasspy_speech_tpu.grammar import Intents, compile_intents
     from rhasspy_speech_tpu.lexicon import LexiconDatabase
 
-    raw = yaml.safe_load(open(path, encoding="utf-8"))
-    intents_dict = {
-        "language": raw["language"],
-        "intents": {"All": {"data": [{"sentences": raw["sentences"]}]}},
-        "lists": raw.get("lists", {}),
-    }
+    intents_dict = flagship_intents_dict()
     ctx = compile_intents(
         Intents.from_dict(intents_dict), _io.StringIO(), LexiconDatabase(),
         number_language="en",
